@@ -1,4 +1,4 @@
-"""ecfft-tpu: TPU-native Elliptic Curve FFT framework.
+"""ecfft-tpu: accelerator-native Elliptic Curve FFT framework (JAX, GPU).
 
 Capability parity with the Rust ``ecfft`` crate (andrewmilson/ecfft),
 re-designed for JAX/XLA/Pallas: O(n log² n) polynomial evaluation and

@@ -4,7 +4,7 @@ Reproduces the reference's benchmark protocol (benches/fftree.rs:14-109:
 all eight algorithms at n=2048 with seed-fixed inputs on both fields,
 plus FFTree generate / serialize / deserialize ×{compressed,uncompressed})
 and the ECFFT-side of benches/comparison.rs (n=8192 evaluate/interpolate),
-batched for the TPU.
+batched for the accelerator.
 
 Usage::
 
@@ -41,8 +41,9 @@ def main(argv=None):
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from ecfft_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.device == "cpu":
         jax.config.update("jax_platforms", "cpu")
 

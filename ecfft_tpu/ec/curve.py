@@ -3,7 +3,7 @@
 Capability parity with /root/reference/src/ec.rs, re-designed around plain
 python-int field arithmetic (construction is host-side and runs once per
 (field, size); only the resulting leaf domains / rational maps ship to the
-TPU). Covers:
+device). Covers:
 
 - general Weierstrass group law (ec.rs:363-489)
 - ShortWeierstrassCurve + Vélu 2-isogenies (ec.rs:204-264)

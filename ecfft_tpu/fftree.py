@@ -1,7 +1,7 @@
 """The device FFTree: struct-of-arrays precomputation + public API.
 
-Re-architecture of the reference's FFTree (/root/reference/src/
-fftree.rs:24-70,318-496) for TPU:
+Re-architecture of the reference's FFTree (src/fftree.rs:24-70,
+318-496) for an accelerator:
 
 - **No subtree pointer chain.** The reference keeps a Box'd chain of
   recursively derived subtrees (fftree.rs:29,465-482). Here the "chain"
@@ -107,8 +107,8 @@ def _tile_extend(spec: FieldSpec, mats, tree_size: int) -> dict:
       bit set:   out[p] = M[i',1,1]·x[p] + M[i',1,0]·x[p^half]  (row 1)
     with i' = p & (half−1) the shared matrix index. Returns
     {"shifts": (logm,), S0: (dec, rec), S1: (dec, rec)} with coeff arrays
-    (logm, m, 2, L). Pure numpy — the tables are constants and eager
-    device ops here would pay per-op dispatch on remote backends.
+    (logm, m, 2, L). Pure numpy — the tables are constants, and eager
+    device ops here would pay a dispatch per op.
     """
     m = tree_size // 2
     L = spec.num_limbs
@@ -231,6 +231,62 @@ def _z_step(spec: FieldSpec, ext, s, st, vt_prev, leaves2):
     }
 
 
+def _free_bytes(device) -> int | None:
+    """Bytes the device can still allocate (``bytes_limit`` less
+    ``bytes_in_use``), or None where it reports no memory statistics —
+    the CPU has no limit to respect."""
+    stats = device.memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        return None
+    return int(stats["bytes_limit"]) - int(stats.get("bytes_in_use", 0))
+
+
+def batch_chunk_for(W: int, L: int, B: int, free: int) -> int | None:
+    """Lanes per chunk for a (W, L, B) state within ``free`` device bytes.
+
+    A step's peak holds four dense (W, L, lanes) u32 buffers: the state,
+    two gather temps and the step output. A chunked run also holds up to
+    three full-batch states: the packed input, the finished chunks and
+    their concatenation. Returns None when the whole batch fits, else the
+    largest divisor of B whose chunks fit; raises SizeError when not even
+    one lane does."""
+    lane = 4 * W * L * 4
+    if B * lane <= free:
+        return None
+    room = free - 3 * W * L * 4 * B
+    for c in range(B - 1, 0, -1):
+        if B % c == 0 and c * lane <= room:
+            return c
+    raise SizeError(
+        f"a (W={W}, L={L}, B={B}) schedule state needs {lane / 1e9:.3f} "
+        f"GB per batch lane at its peak (state, two gathers, step output)"
+        f" plus {3 * W * L * 4 * B / 1e9:.2f} GB of full-batch states; "
+        f"the device has {free / 1e9:.2f} GB free. Use a smaller n or "
+        f"batch, or shard the batch over more devices.")
+
+
+def _batch_chunk(W: int, L: int, flat) -> int | None:
+    """Preflight + chunking for one schedule run on ``flat`` (B, m, L),
+    against the devices the batch lives on (numpy input: the default
+    device; none under an outer jit, which places the batch itself). A
+    batch sharded over several devices is checked per device and never
+    chunked."""
+    if isinstance(flat, jax.core.Tracer):
+        return None
+    devs = (flat.devices() if isinstance(flat, jax.Array)
+            else {jax.devices()[0]})
+    free = [_free_bytes(d) for d in devs]
+    if None in free:
+        return None
+    lanes = -(-flat.shape[0] // len(devs))
+    chunk = batch_chunk_for(W, L, lanes, min(free))
+    if chunk is not None and len(devs) > 1:
+        raise SizeError(
+            f"{lanes} lanes per device of a (W={W}, L={L}) schedule state "
+            f"do not fit one device; shard the batch over more devices")
+    return chunk
+
+
 class FFTree:
     """Precomputed ECFFT evaluation-domain tables for one field and size.
 
@@ -240,6 +296,10 @@ class FFTree:
     between python ints and device form — and dispatches on the trailing
     size like the reference's ``subtree_with_size`` (fftree.rs:489-496).
     """
+
+    # the 1-D device mesh the batch is sharded over; set on the copy a
+    # ShardedFFTree runs, None on one device
+    mesh = None
 
     def __init__(self, spec: FieldSpec, n: int, tables: dict,
                  f_layers: list | None = None, maps: list | None = None):
@@ -422,8 +482,8 @@ class FFTree:
 
     def prepare(self, sizes: tuple | None = None, cache_dir: str | None = None):
         """Build the coefficient pool and the ENTER/EXIT schedules ahead
-        of time (ideally while tables still live on CPU — building them
-        eagerly on the TPU pays per-op remote-compile costs).
+        of time (ideally while tables still live on the CPU, then move
+        them with :meth:`place_on`).
 
         ``cache_dir``: persist the pool to
         ``<dir>/.pool_<field>_<n>_<fmt>_<digest>.npz`` and reuse it on
@@ -491,10 +551,7 @@ class FFTree:
         if hasattr(self, "_pool"):
             self._pool = jax.device_put(self._pool, device)
             self._scheds = {
-                k: v._replace(
-                    xs=jax.device_put(v.xs, device),
-                    host_xs=tuple(np.asarray(a) for a in v.xs),
-                )
+                k: v._replace(xs=jax.device_put(v.xs, device))
                 for k, v in self._scheds.items()
             }
         return self
@@ -506,64 +563,19 @@ class FFTree:
         along the position axis (inside the jitted computation)."""
         from ecfft_tpu.ops import schedule as sch
 
-        import os
-
         lead = batch.shape[:-2]
         flat = batch.reshape((-1,) + batch.shape[-2:])
         payload = (flat, *extras) if extras else flat
-        use_pallas = (jax.default_backend() == "tpu"
-                      and not os.environ.get("ECFFT_NO_PALLAS"))
-        # bound the HBM peak with a PER-EXECUTOR lane-cost model
-        # (ECFFT_HBM_BUDGET overrides the chunk-set budget in bytes):
-        #  - scan: state + two gathers + the step output, each ≤(W, L, c)
-        #  - unrolled: the same window set, plus the chunk's unpacked
-        #    output rows (m_out·L) — finished chunks accumulate while
-        #    later chunks run (ops/unrolled.py packs/unpacks per chunk)
-        B = flat.shape[0]
-        chunk = None
-        if use_pallas:
-            L = self.spec.num_limbs
-            if os.environ.get("ECFFT_EXECUTOR") == "unrolled":
-                per_lane = (4 * sched.W + 2 * m_out) * L * 4
-            else:
-                per_lane = 4 * sched.W * L * 4
-            budget = float(os.environ.get("ECFFT_HBM_BUDGET", 4e9))
-            max_lanes = max(128, int(budget // per_lane) // 128 * 128)
-            if B > max_lanes and B % 128 == 0:
-                chunk = max_lanes
-                while B % chunk:
-                    chunk -= 128
-            # preflight the PHYSICAL single-buffer size: the TPU tiles a
-            # (W, L, B) u32 buffer as T(8,128) on the trailing dims, so
-            # the limb dim pads to a multiple of 8 and the lane dim to
-            # 128 — one secp n=2^20 state is 17.18 GB at ANY batch ≤ 128
-            # (measured: bench_r05_n20.log). Fail with the envelope
-            # spelled out instead of a 10-minute compile ending in an
-            # opaque XLA allocation error.
-            from ecfft_tpu.errors import SizeError
-
-            hbm = float(os.environ.get("ECFFT_HBM_BYTES", 16e9))
-            bc = chunk if chunk is not None else B
-            phys = sched.W * -(-L // 8) * 8 * -(-bc // 128) * 128 * 4
-            if phys > hbm:
-                raise SizeError(
-                    f"one (W={sched.W}, L={L}, B={bc}) state buffer is "
-                    f"{phys / 1e9:.2f} GB after TPU tile padding "
-                    f"(limb dim -> x8 sublanes, batch -> x128 lanes) — "
-                    f"over the chip's {hbm / 1e9:.0f} GB HBM at any "
-                    f"batch (padding floors the cost at B=128). This "
-                    f"size needs n-axis sharding or a smaller n; "
-                    f"single-chip envelope for this field is documented "
-                    f"in bench_r05_n20.log. Override the limit with "
-                    f"ECFFT_HBM_BYTES.")
+        chunk = _batch_chunk(sched.W, self.spec.num_limbs, flat)
         res = sch.run_schedule(self.spec, self._pool, sched, payload,
-                               one_pos, m_out, use_pallas, chunk)
+                               one_pos, m_out, sch.step_route(), chunk,
+                               self.mesh)
         return res.reshape(lead + res.shape[-2:])
 
     # ---------------------------------------------------------- algorithms
     # The public transforms run on the schedule machine (ops/schedule.py):
     # ONE compiled scan interprets per-size schedule tensors, so any
-    # (algorithm, size) costs a single TPU compile. The *_unscheduled
+    # (algorithm, size) costs a single compile. The *_unscheduled
     # variants below keep the direct multi-scan formulation for
     # cross-validation and for construction (which predates the pool).
 

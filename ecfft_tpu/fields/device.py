@@ -1,13 +1,13 @@
 """Device (JAX) prime-field arithmetic on limb tensors.
 
 This replaces the reference's dependency on arkworks' Montgomery backend
-(`Fp256<MontBackend<..,4>>`, /root/reference/src/lib.rs:37) with a
-TPU-native representation:
+(`Fp256<MontBackend<..,4>>`, src/lib.rs:37 of the reference) with a
+limb-tensor representation:
 
 - A field-element batch of shape ``(...,)`` is a ``uint32`` array of shape
   ``(..., L)`` holding L limbs of 16 bits each. 16-bit limbs make every
-  partial product exact in uint32 on the VPU (TPUs have no native int64),
-  and column sums stay far below 2^32 so carries can be fully deferred.
+  partial product exact in a u32 lane with no 64-bit arithmetic, and
+  column sums stay far below 2^32 so carries can be fully deferred.
 - secp256k1 (p = 2^256 − 2^32 − 977) uses L=16 limbs in **canonical** form
   with pseudo-Mersenne reduction: 2^256 ≡ 2^32 + 977 (mod p), so the high
   half of a product folds into the low half with two sparse
@@ -25,10 +25,10 @@ Design notes (why this shape of code):
   pad/flatten/reshape stagger — a classic dense-linear-algebra trick that
   XLA turns into pure data movement.
 - All ops are shape-polymorphic over leading batch dims, pure, and
-  jit/vmap/shard_map-friendly. The Pallas kernel in
+  jit/vmap/shard_map-friendly. The Pallas step kernel in
   ``ecfft_tpu/ops/pallas_step.py`` fuses the same math for the hot
-  schedule step; this module is the portable XLA path and the semantic
-  ground truth.
+  schedule step on the GPU; this module is the portable XLA path and the
+  semantic ground truth.
 """
 
 from __future__ import annotations
@@ -444,7 +444,7 @@ def inv(spec: FieldSpec, a):
 
     Replaces ark_ff::batch_inversion (fftree.rs:330-333 etc.): the
     sequential Montgomery trick is hostile to vector units, while
-    per-element Fermat is embarrassingly parallel — the TPU-native choice.
+    per-element Fermat is embarrassingly parallel — the data-parallel choice.
     Maps 0 → 0 (matching arkworks batch_inversion's skip-zeros semantics).
     """
     r = pow_int(spec, a, spec.p - 2)

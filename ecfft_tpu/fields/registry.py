@@ -7,7 +7,7 @@ reference's own (they double as test vectors, lib.rs:45-59 and
 lib.rs:200-206).
 
 Device layout decisions also live here: each ``FieldSpec`` fixes the limb
-decomposition used on TPU (16-bit limbs in uint32 lanes so every partial
+decomposition used on the device (16-bit limbs in uint32 lanes so every partial
 product is exact in uint32) and the Montgomery constants (R = 2^(16·L),
 matching arkworks' R = 2^256 for secp256k1 so table values agree with the
 reference bit-for-bit after canonical-form conversion).

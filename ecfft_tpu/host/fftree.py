@@ -1,7 +1,7 @@
 """Host-side golden FFTree: exact python-int implementation of all eight
 ECFFT algorithms (ENTER, EXIT, DEGREE, EXTEND, MEXTEND, MOD, REDC, VANISH).
 
-This is the correctness oracle for the TPU path and the small-n fallback.
+This is the correctness oracle for the device path and the small-n fallback.
 It holds capability parity with /root/reference/src/fftree.rs but is an
 independent implementation over python ints. The device implementation
 (ecfft_tpu/ops + ecfft_tpu/fftree.py) re-architects the same math as

@@ -3,7 +3,8 @@
 The native engine is the framework's host runtime: an independent
 single-core oracle (arkworks-class 4×64 Montgomery arithmetic), the
 measured baseline for bench.py, and a fast FFTree builder for large n.
-Build it with ``python -m ecfft_tpu.native`` or ``make -C native``.
+It is compiled with ``g++`` from ``native/ecfft_native.cpp`` into
+``native/libecfft_native.so`` on first use (or ``python -m ecfft_tpu.native``).
 
 All boundary values are 32-byte little-endian canonical integers.
 """
@@ -163,6 +164,11 @@ class NativeFFTree:
     def redc_z0(self, evals: list[int], a: list[int]) -> list[int]:
         out = ctypes.create_string_buffer(32 * len(evals))
         lib().ecn_redc(self._h, _pack(evals), _pack(a), len(evals), 0, out)
+        return _unpack(out.raw)
+
+    def redc_z1(self, evals: list[int], a: list[int]) -> list[int]:
+        out = ctypes.create_string_buffer(32 * len(evals))
+        lib().ecn_redc(self._h, _pack(evals), _pack(a), len(evals), 1, out)
         return _unpack(out.raw)
 
     def modular_reduce(self, evals, a, c) -> list[int]:

@@ -9,7 +9,7 @@ comparison: a decimation-in-time NTT whose every butterfly stage
     bit set:    out[p] = x[p ⊕ 2^b] − w·x[p]
 
 is exactly one affine schedule step — so the SAME compiled interpreter
-(and the same Pallas fused kernel) that runs ECFFT runs the classical
+(and the same fused step kernel) that runs ECFFT runs the classical
 FFT. The input bit-reversal permutation is folded into the first stage's
 gather maps; the inverse transform appends one 1/n scaling step.
 """
@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import numpy as np
 
-import jax
 import jax.numpy as jnp
 
 from ecfft_tpu.fields import device as fd
@@ -110,9 +109,8 @@ class NTTPlan:
     def _run(self, batch, sched):
         lead = batch.shape[:-2]
         flat = batch.reshape((-1,) + batch.shape[-2:])
-        use_pallas = jax.default_backend() == "tpu"
         out = sch.run_schedule(self.spec, self.pool, sched, flat,
-                               self.n - 1, self.n, use_pallas)
+                               self.n - 1, self.n, sch.step_route())
         return out.reshape(lead + out.shape[-2:])
 
     def ntt(self, coeffs):

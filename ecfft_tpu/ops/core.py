@@ -2,7 +2,7 @@
 
 The reference implements all eight algorithms as recursive divide-and-
 conquer over a pointer-chased subtree chain (/root/reference/src/
-fftree.rs:72-316). That shape is wrong for a TPU: recursion becomes
+fftree.rs:72-316). That shape is wrong for an accelerator: recursion becomes
 sequential host control flow, and per-node 2×2 matrix structs defeat
 vectorization. Here every algorithm is re-derived as a *flat iteration
 over levels*, where each level is one whole-tensor batched operation:
@@ -16,7 +16,7 @@ over levels*, where each level is one whole-tensor batched operation:
   batched EXTEND + elementwise combines.
 - DEGREE's data-dependent branch (fftree.rs:180-191) becomes a batched
   `where`: both paths are computed and selected per batch element, which
-  is the vmap-friendly TPU formulation.
+  is the vmap-friendly formulation.
 
 Conventions:
 - an evaluation batch has shape (..., n, L): leading dims are free batch

@@ -1,69 +1,74 @@
-"""Pallas TPU kernel for the schedule-machine step: fused muladd2.
+"""Pallas step kernels for the schedule machine, on the Triton route.
 
-The step primitive out = A·x1 + B·x2 over (W, L, B) limb states costs
-~135 whole-tensor u32 ops in XLA, and XLA:TPU does not fuse long uint32
-elementwise chains — measured ~76 ms/step at (8193, 16, 128), i.e. every
-op is a full HBM round trip. This kernel performs the entire pipeline —
-shift-accumulate limb convolution of both products, pseudo-Mersenne
-folds, exact ripple carry normalization, and the conditional-subtract
-chain — inside VMEM, so each step reads x1/x2 and writes the output once
-(~0.4 ms of traffic at those shapes) with all intermediate columns living
-in registers/VMEM.
+The affine step writes ``A·x1 + B·x2`` (or its 1-mul form ``x1 + C·x2``)
+into a window of the (W, L, B) limb state. It is pure u32 integer work:
+a 16×16-limb shift-accumulate convolution, a pseudo-Mersenne fold or a
+CIOS Montgomery pass, an exact carry ripple and a conditional-subtract
+chain. These kernels run that whole pipeline per element with the 2L
+product columns in registers, so a step reads x1 and x2 once and writes
+its window once, straight into the state buffer (input_output_aliases).
+The arithmetic is plain elementwise jnp on lists of per-limb planes.
 
-Layout: limbs on sublanes, batch on lanes (B a multiple of 128 for full
-lanes). The serial carry ripple is fine here: it's VPU-register work, not
-HBM passes, and exactness is what matters (no float anywhere).
+Each program owns a (TW positions × TB batch lanes) tile. The batch is
+the state's contiguous axis, so every per-limb load and store coalesces;
+the L limbs are unrolled. The window start is a one-element operand read
+inside the kernel, so one compiled scan serves every step. Block sizes
+are powers of two (``step_tiles``).
 
-The gathers of the affine step (x[g1], x[g2], pool rows) stay in XLA —
-they measured fast (0.4 ms/step) and Mosaic's gather support is limited.
+The in-place write is race-free: a program writes only the rows and
+lanes it owns, and the self-read variant (OP_AFF1S) reads x1 from
+exactly those rows before writing them; x1 and x2 of the gathered
+variants are separate temps.
 """
 
 from __future__ import annotations
 
-import os
-from functools import partial
+from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ecfft_tpu.fields.registry import FieldSpec
 
 MASK16 = 0xFFFF  # python int: jnp scalars become captured consts in pallas
 
-# Limb-major internal layout for the convolution loops (read once at
-# import; processes needing the other variant set the env first). In the
-# (TW, L, TB) tile layout every per-limb slice lo[:, j, :] extracts ONE
-# SUBLANE from each vector register — a relayout per slice, ~512 of them
-# per tile. Transposing the operand tiles once to (L, TW, TB) makes each
-# slice a whole aligned register group: the flagship AFF1S step kernel
-# measured 21.4 → 8.8 ms/call at (A=65536, L=16, B=128).
-TILE_LIMB_MAJOR = os.environ.get("ECFFT_TILE_LIMB_MAJOR", "1") == "1"
+
+def kernel_supports(spec: FieldSpec) -> bool:
+    """Fields the step kernels cover: multi-limb, with either a fold small
+    enough for u32 columns or the CIOS Montgomery path (m31's single limb
+    takes XLA's elementwise path)."""
+    return spec.num_limbs > 1 and (
+        spec.fold_terms is None
+        or sum(d for _, d in spec.fold_terms) < (1 << 10))
 
 
-def _make_helpers(spec: FieldSpec):
-    """Shared reduction tail for the step kernels: exact carry ripple,
+class Helpers:
+    """Per-field constants and the reduction tail: exact carry ripple,
     pseudo-Mersenne fold, CIOS Montgomery pass, conditional subtract."""
-    L = spec.num_limbs
-    fold_terms = spec.fold_terms
-    mont = fold_terms is None  # CIOS Montgomery path (see ops/schedule.py)
-    assert mont or sum(d for _, d in fold_terms) < (1 << 10)
-    slack = 16 * L - spec.p.bit_length()
-    if mont:
-        js = list(range(slack + 7, -1, -1))  # CIOS bound 2^(16L+7)
-    else:
-        js = [0] if slack == 0 else list(range(slack + 1, -1, -1))
-    W1 = L + 1
-    comps = [
-        tuple(((1 << (16 * W1)) - (spec.p << j)) >> (16 * i) & 0xFFFF
-              for i in range(W1))
-        for j in js
-    ]
-    p_limbs = spec.to_limbs(spec.p)
-    n_prime = spec.n_prime if mont else None
 
-    def ripple(cols):
+    def __init__(self, spec: FieldSpec):
+        L = self.L = spec.num_limbs
+        self.mont = spec.fold_terms is None
+        slack = 16 * L - spec.p.bit_length()
+        if self.mont:
+            # canonical operands: a CIOS input T < 2p² (two products)
+            # reduces below T/R + p, i.e. below 2p when 2p < R, else 3p
+            js = [0] if slack else [1, 0]
+        else:
+            js = [0] if slack == 0 else list(range(slack + 1, -1, -1))
+        self.W1 = W1 = L + 1
+        self.comps = [
+            tuple(((1 << (16 * W1)) - (spec.p << j)) >> (16 * i) & 0xFFFF
+                  for i in range(W1))
+            for j in js
+        ]
+        self.fold_terms = spec.fold_terms
+        self.p_limbs = spec.to_limbs(spec.p)
+        self.n_prime = spec.n_prime
+
+    def ripple(self, cols):
         """Exact serial carry propagation; returns canonical cols + top."""
         out = []
         carry = jnp.zeros_like(cols[0])
@@ -74,324 +79,177 @@ def _make_helpers(spec: FieldSpec):
         out.append(carry)
         return out
 
-    def fold(cols):
+    def fold(self, cols):
         """cols (list, width > L) → width max(L, off+hw) via fold terms."""
-        w = len(cols)
-        hw = w - L
-        out_w = max(L, max(off for off, _ in fold_terms) + hw)
-        out = [None] * out_w
-        for k in range(out_w):
-            out[k] = cols[k] if k < L else jnp.zeros_like(cols[0])
-        for off, digit in fold_terms:
-            # plain python-int scalars: jnp constants would be captured
-            # consts, which pallas_call rejects
+        L = self.L
+        hw = len(cols) - L
+        out_w = max(L, max(off for off, _ in self.fold_terms) + hw)
+        out = [cols[k] if k < L else jnp.zeros_like(cols[0])
+               for k in range(out_w)]
+        for off, digit in self.fold_terms:
             for t in range(hw):
                 out[off + t] = out[off + t] + cols[L + t] * digit
         return out
 
-    def cios(cols):
-        """Word-serial Montgomery reduction in place (residents in
-        Montgomery form): product columns → canonical·R⁻¹ columns."""
+    def cios(self, cols):
+        """Word-serial Montgomery reduction: 2L product columns (< 2^22)
+        → canonical·R⁻¹ columns plus the top carry."""
+        L = self.L
+        cols = list(cols)
         for _ in range(L):
-            m = (cols[0] * n_prime) & MASK16
+            m = (cols[0] * self.n_prime) & MASK16
             for t in range(L):
-                prod = m * p_limbs[t]
+                prod = m * self.p_limbs[t]
                 cols[t] = cols[t] + (prod & MASK16)
                 cols[t + 1] = cols[t + 1] + (prod >> 16)
             carry = cols[0] >> 16  # low 16 bits are exactly zero
             cols = cols[1:]
             cols[0] = cols[0] + carry
-        return ripple(cols[: L + 1])
+        return self.ripple(cols[: L + 1])
 
-    def cond_subtract(x, sub_comps):
+    def cond_subtract(self, x, sub_comps):
         """Canonical W1-wide columns → x mod p (first L cols)."""
+        W1 = self.W1
         for comp in sub_comps:
-            s = [x[i] + comp[i] for i in range(W1)]
-            y = ripple(s)
+            y = self.ripple([x[i] + comp[i] for i in range(W1)])
             need = y[W1] > 0
             x = [jnp.where(need, y[i], x[i]) for i in range(W1)]
         return x
 
-    return dict(L=L, mont=mont, W1=W1, comps=comps, ripple=ripple,
-                fold=fold, cios=cios, cond_subtract=cond_subtract)
+    def reduce(self, cols):
+        """2L product columns → the field value's L canonical planes."""
+        if self.mont:
+            c = self.cios(cols)
+        else:
+            c = self.ripple(self.fold(cols))
+            c = self.ripple(self.fold(c))
+        return self.cond_subtract(c[:self.W1], self.comps)[:self.L]
 
 
-def _conv_accum(h, prods):
-    """The shift-accumulate limb convolution Σᵥ cᵥ·xᵥ shared by the
-    step tiles: returns the 2L product column planes ((TW, TB) each).
-    ``prods``: list of (coeff (TW, L), x (TW, L, TB)).
+@lru_cache(maxsize=None)
+def helpers(spec: FieldSpec) -> Helpers:
+    return Helpers(spec)
 
-    With TILE_LIMB_MAJOR the operand tiles are transposed once to
-    (L, TW, TB) so the per-limb column slices are whole register
-    groups instead of per-slice sublane extracts; the arithmetic is
-    identical either way (u32 adds commute)."""
-    L = h["L"]
-    shape = prods[0][1].shape[:1] + prods[0][1].shape[2:]
-    cols = [jnp.zeros(shape, jnp.uint32) for _ in range(2 * L)]
-    if TILE_LIMB_MAJOR:
-        prods = [(c, jnp.transpose(x, (1, 0, 2))) for c, x in prods]
-        for i in range(L):
-            lo = hi = None
-            for c, x in prods:
-                p = c[:, i][None, :, None] * x
-                lo = p & MASK16 if lo is None else lo + (p & MASK16)
-                hi = p >> 16 if hi is None else hi + (p >> 16)
-            for j in range(L):
-                cols[i + j] = cols[i + j] + lo[j]
-                cols[i + j + 1] = cols[i + j + 1] + hi[j]
-        return cols
+
+def conv(L: int, prods):
+    """Σᵥ cᵥ·xᵥ as 2L product-column planes. ``prods``: (c, x) pairs of
+    L planes each (a coefficient plane broadcasts against x; python ints
+    are constants)."""
+    cols = [None] * (2 * L)
+
+    def acc(k, v):
+        cols[k] = v if cols[k] is None else cols[k] + v
+
     for i in range(L):
-        lo = hi = None
-        for c, x in prods:
-            # broadcast the i-th coefficient limb (TW, 1, 1) over the
-            # (TW, L, B) tile
-            p = c[:, i][:, None, None] * x
-            lo = p & MASK16 if lo is None else lo + (p & MASK16)
-            hi = p >> 16 if hi is None else hi + (p >> 16)
         for j in range(L):
-            cols[i + j] = cols[i + j] + lo[:, j, :]
-            cols[i + j + 1] = cols[i + j + 1] + hi[:, j, :]
+            for c, x in prods:
+                p = c[i] * x[j]
+                acc(i + j, p & MASK16)
+                acc(i + j + 1, p >> 16)
     return cols
 
 
-def _limb_slices(x):
-    """The L per-limb (TW, TB) planes of a (TW, L, TB) tile. In
-    limb-major mode, one transpose up front makes every slice a whole
-    register group (same trick as _conv_accum)."""
-    if TILE_LIMB_MAJOR:
-        xt = jnp.transpose(x, (1, 0, 2))
-        return [xt[j] for j in range(x.shape[1])]
-    return [x[:, j, :] for j in range(x.shape[1])]
+def aff2(h: Helpers, a, b, x1, x2):
+    """a·x1 + b·x2 with a single reduction."""
+    return h.reduce(conv(h.L, [(a, x1), (b, x2)]))
 
 
-def _stack_limbs(planes):
-    """Inverse of _limb_slices: L (TW, TB) planes → (TW, L, TB)."""
-    if TILE_LIMB_MAJOR:
-        return jnp.transpose(jnp.stack(planes, axis=0), (1, 0, 2))
-    return jnp.stack(planes, axis=1)
+def aff1(h: Helpers, c_co, x1, x2):
+    """x1 + C·x2. The fold path injects x1 into the product columns before
+    reduction (it is smaller than a second product, so the aff2 bounds
+    cover it); the Montgomery path adds x1 after CIOS with one conditional
+    subtract."""
+    L, W1 = h.L, h.W1
+    cols = conv(L, [(c_co, x2)])
+    if h.mont:
+        x = h.cond_subtract(h.cios(cols)[:W1], h.comps)
+        s = [x[i] + x1[i] for i in range(L)] + [x[L]]
+        return h.cond_subtract(h.ripple(s)[:W1], h.comps[-1:])[:L]
+    for j in range(L):
+        cols[j] = cols[j] + x1[j]
+    return h.reduce(cols)
 
 
-def aff2_tile(h, a, b, x1, x2):
-    """A·x1 + B·x2 on one (TW, L, TB) tile; ``h`` from _make_helpers.
-    a, b: (TW, L) coefficient rows. The body of the muladd2 kernel,
-    shared with the fused pair-butterfly kernels (ops/unrolled.py)."""
-    L, mont, W1 = h["L"], h["mont"], h["W1"]
-    ripple, fold, cios = h["ripple"], h["fold"], h["cios"]
-    cols = _conv_accum(h, [(a, x1), (b, x2)])
-    if mont:
-        # CIOS: residents are in Montgomery form, so one pass
-        # yields (A·x1 + B·x2)·R⁻¹
-        c = cios(cols)
-    else:
-        c = ripple(fold(cols))
-        c = ripple(fold(c))
-    x = h["cond_subtract"](c[:W1], h["comps"])
-    return _stack_limbs(x[:L])
+# elements per program and warps per program; one element per thread
+# keeps the ~70 live limb planes of a secp step inside the 255-register
+# budget (see step_tiles)
+TILE_ELEMS = 128
+NUM_WARPS = 4
 
 
-def aff1_tile(h, c_co, x1, x2):
-    """x1 + C·x2 on one (TW, L, TB) tile; ``h`` from _make_helpers.
-    The body of the muladd1 kernel, shared with ops/unrolled.py."""
-    L, mont, W1 = h["L"], h["mont"], h["W1"]
-    ripple, fold, cios = h["ripple"], h["fold"], h["cios"]
-    cols = _conv_accum(h, [(c_co, x2)])
-    x1p = _limb_slices(x1)
-    if mont:
-        c = cios(cols)
-        x = h["cond_subtract"](c[:W1], h["comps"])
-        # + x1 (canonical, Montgomery form): one conditional subtract
-        s = [x[i] + x1p[i] for i in range(L)] + [x[L]]
-        x = h["cond_subtract"](ripple(s)[:W1], h["comps"][-1:])
-    else:
-        for j in range(L):
-            cols[j] = cols[j] + x1p[j]
-        c = ripple(fold(cols))
-        c = ripple(fold(c))
-        x = h["cond_subtract"](c[:W1], h["comps"])
-    return _stack_limbs(x[:L])
+def step_tiles(A: int, B: int, elems: int = TILE_ELEMS) -> tuple[int, int]:
+    """(TW, TB) for an A-row window over B lanes: TB the largest power of
+    two dividing B (capped at ``elems``), TW the power of two that fills
+    the tile and divides A."""
+    tb = min(B & -B, elems)
+    tw = max(1, elems // tb)
+    while A % tw:
+        tw //= 2
+    return tw, tb
 
 
-def _make_kernel(spec: FieldSpec):
-    h = _make_helpers(spec)
+def _ip_call(planes_fn, n_coef, self_x1, state, operands, start,
+             interpret):
+    """pallas_call plumbing shared by the in-place variants.
 
-    def kernel(a_ref, b_ref, x1_ref, x2_ref, o_ref):
-        o_ref[...] = aff2_tile(h, a_ref[...], b_ref[...], x1_ref[...],
-                               x2_ref[...])
-
-    return kernel
-
-
-def _make_kernel1(spec: FieldSpec):
-    """out = x1 + C·x2 — the 1-mul step kernel (OP_AFF1/OP_AFF1S).
-
-    Scaled schedules (ops/schedule.py::_emit_extend) absorb one of the
-    two butterfly coefficients into downstream steps, so most steps need
-    a single limb convolution — ~60% of muladd2's VPU work. For the
-    fold path x1 is injected into the product columns before reduction
-    (its contribution is strictly smaller than a second product, so the
-    muladd2 bounds cover it); for the Montgomery path x1 (in Montgomery
-    form like everything resident) is added after CIOS with one
-    conditional subtract."""
-    h = _make_helpers(spec)
-
-    def kernel(c_ref, x1_ref, x2_ref, o_ref):
-        o_ref[...] = aff1_tile(h, c_ref[...], x1_ref[...], x2_ref[...])
-
-    return kernel
-
-
-# ------------------------------------------------- in-place step kernels
-#
-# The scan executor's step used to be: gather x2 → slice x1 → muladd
-# kernel → dynamic_update_slice back into the state. The slice and the
-# update-slice are two full window traversals of pure data movement
-# (measured 4.5 + 11 ms at the flagship shape where the muladd itself is
-# 33.6 ms). These variants write the result DIRECTLY into the state
-# buffer (input_output_aliases) at a RUNTIME window start (scalar-
-# prefetched block offset — the one compiled scan program serves every
-# step), and the self-read variant also reads x1 straight from the
-# state block, eliminating both movement steps.
-#
-# The in-place write is race-free: block (g, j) of the output depends
-# only on block (g, j) of the aliased state input (x2/x1g are separate
-# materialized gather temps), so the automatic pipelining can never
-# observe a partially-written dependency.
-
-
-def _ip_tiles(W: int, A: int, B: int):
-    TB = 128 if B % 128 == 0 else B
-    TW = 32 if (W % 128 == 0 and A % 128 == 0 and TB % 128 == 0) else 8
-    return TW, TB
-
-
-def _ip_call(spec, kernel, state, tensors, start, A, interpret):
-    """Shared pallas_call plumbing for the in-place step kernels:
-    ``tensors`` = coefficient rows ((A, L)) and window tensors
-    ((A, L, B)); the state rides last, aliased to the output, its
-    blocks addressed at the scalar-prefetched window start."""
+    ``operands`` = ``n_coef`` coefficient rows (A, L) then window tensors
+    (A, L, B); the state rides last, aliased to the output. With
+    ``self_x1`` the kernel reads x1 from the state window itself."""
     W, L, B = state.shape
-    TW, TB = _ip_tiles(W, A, B)
-    assert W % TW == 0 and A % TW == 0
-    coeff_spec = pl.BlockSpec((TW, L), lambda g, j, s: (g, 0))
-    win_spec = pl.BlockSpec((TW, L, TB), lambda g, j, s: (g, 0, j))
-    st_spec = pl.BlockSpec((TW, L, TB), lambda g, j, s: (s[0] + g, 0, j))
-    in_specs = [coeff_spec if t.ndim == 2 else win_spec
-                for t in tensors] + [st_spec]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(A // TW, B // TB),
-        in_specs=in_specs,
-        out_specs=st_spec,
-    )
-    start_blk = (start // TW).astype(jnp.int32).reshape(1)
+    A = operands[-1].shape[0]
+    tw, tb = step_tiles(A, B)
+    assert A % tw == 0 and B % tb == 0, (A, B, tw, tb)
+
+    def kernel(start_ref, *refs):
+        *in_refs, st_ref, o_ref = refs
+        g = pl.program_id(0)
+        j = pl.program_id(1)
+        rows = pl.ds(g * tw, tw)
+        lanes = pl.ds(j * tb, tb)
+        srows = pl.ds(start_ref[0] + g * tw, tw)
+        coefs = [[r[rows, pl.ds(li, 1)] for li in range(L)]
+                 for r in in_refs[:n_coef]]
+        wins = [[r[rows, li, lanes] for li in range(L)]
+                for r in in_refs[n_coef:]]
+        if self_x1:
+            wins.insert(0, [st_ref[srows, li, lanes] for li in range(L)])
+        out = planes_fn(*coefs, *wins)
+        for li in range(L):
+            o_ref[srows, li, lanes] = out[li]
+
     return pl.pallas_call(
         kernel,
         out_shape=jax.ShapeDtypeStruct((W, L, B), jnp.uint32),
-        grid_spec=grid_spec,
-        # alias the STATE input (last tensor operand; +2 for the scalar
-        # arg and the leading coefficient/window operands) to the output
-        input_output_aliases={1 + len(tensors): 0},
+        grid=(A // tw, B // tb),
+        # the state is the last operand (after start and the others)
+        input_output_aliases={1 + len(operands): 0},
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(start_blk, *tensors, state)
+        name="ecfft_step",
+    )(start.astype(jnp.int32).reshape(1), *operands, state)
 
 
 @partial(jax.jit, static_argnums=(0, 5))
 def pallas_aff1s_ip(spec: FieldSpec, C, state, x2, start,
                     interpret: bool = False):
     """state[start+q] ← state[start+q] + C·x2 in place (OP_AFF1S)."""
-    h = _make_helpers(spec)
-
-    def kernel(s_ref, c_ref, x2_ref, st_ref, o_ref):
-        o_ref[...] = aff1_tile(h, c_ref[...], st_ref[...], x2_ref[...])
-
-    return _ip_call(spec, kernel, state, (C, x2), start,
-                    x2.shape[0], interpret)
+    return _ip_call(partial(aff1, helpers(spec)), 1, True, state,
+                    (C, x2), start, interpret)
 
 
 @partial(jax.jit, static_argnums=(0, 6))
 def pallas_aff1g_ip(spec: FieldSpec, C, state, x1, x2, start,
                     interpret: bool = False):
     """state[start+q] ← x1 + C·x2 in place (OP_AFF1, gathered x1)."""
-    h = _make_helpers(spec)
-
-    def kernel(s_ref, c_ref, x1_ref, x2_ref, st_ref, o_ref):
-        o_ref[...] = aff1_tile(h, c_ref[...], x1_ref[...], x2_ref[...])
-
-    return _ip_call(spec, kernel, state, (C, x1, x2), start,
-                    x2.shape[0], interpret)
+    return _ip_call(partial(aff1, helpers(spec)), 1, False, state,
+                    (C, x1, x2), start, interpret)
 
 
 @partial(jax.jit, static_argnums=(0, 7))
 def pallas_aff2g_ip(spec: FieldSpec, A_, B_, state, x1, x2, start,
                     interpret: bool = False):
     """state[start+q] ← A·x1 + B·x2 in place (OP_AFFINE, gathered x1)."""
-    h = _make_helpers(spec)
-
-    def kernel(s_ref, a_ref, b_ref, x1_ref, x2_ref, st_ref, o_ref):
-        o_ref[...] = aff2_tile(h, a_ref[...], b_ref[...], x1_ref[...],
-                               x2_ref[...])
-
-    return _ip_call(spec, kernel, state, (A_, B_, x1, x2), start,
-                    x2.shape[0], interpret)
-
-
-@partial(jax.jit, static_argnums=(0, 4))
-def pallas_muladd1(spec: FieldSpec, C, x1, x2, interpret: bool = False):
-    """x1 + C·x2 with C: (W, L) coefficient rows; x1, x2: (W, L, Bt)."""
-    W, L, Bt = x1.shape
-    TB = 128 if Bt % 128 == 0 else Bt
-    TW = 32 if (W % 128 == 0 and TB % 128 == 0) else 8
-    assert W % TW == 0, "state width must be padded to the position tile"
-    kernel = _make_kernel1(spec)
-    return pl.pallas_call(
-        kernel,
-        grid=(W // TW, Bt // TB),
-        in_specs=[
-            pl.BlockSpec((TW, L), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TW, L, TB), lambda i, j: (i, 0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TW, L, TB), lambda i, j: (i, 0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((TW, L, TB), lambda i, j: (i, 0, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((W, L, Bt), jnp.uint32),
-        interpret=interpret,
-    )(C, x1, x2)
-
-
-@partial(jax.jit, static_argnums=(0, 5))
-def pallas_muladd2(spec: FieldSpec, A, B, x1, x2, interpret: bool = False):
-    """A, B: (W, L) coefficient rows; x1, x2: (W, L, Bt) states.
-
-    2-D grid (position tile × batch tile): the conv intermediates scale
-    with TW·L·TB, so tiling the BATCH keeps VMEM bounded at any batch
-    size (a 1-D grid OOM'd above batch ~96 at n=2^16 — the round-1
-    BASELINE config blocker)."""
-    W, L, Bt = x1.shape
-    TB = 128 if Bt % 128 == 0 else Bt
-    # scoped-VMEM footprint scales with TW·L·max(TB, 128) (sub-lane-width
-    # batches pad to the full 128-lane tile, costing as much as TB=128);
-    # TW=32 sits under the 16M scoped limit only when TB is lane-exact
-    TW = 32 if (W % 128 == 0 and TB % 128 == 0) else 8
-    assert W % TW == 0, "state width must be padded to the position tile"
-    kernel = _make_kernel(spec)
-    return pl.pallas_call(
-        kernel,
-        grid=(W // TW, Bt // TB),
-        in_specs=[
-            pl.BlockSpec((TW, L), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TW, L), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TW, L, TB), lambda i, j: (i, 0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TW, L, TB), lambda i, j: (i, 0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((TW, L, TB), lambda i, j: (i, 0, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((W, L, Bt), jnp.uint32),
-        interpret=interpret,
-    )(A, B, x1, x2)
+    return _ip_call(partial(aff2, helpers(spec)), 2, False, state,
+                    (A_, B_, x1, x2), start, interpret)

@@ -1,7 +1,7 @@
 """Multi-chip execution: batch sharding over a device mesh.
 
 The reference is single-threaded/single-process (SURVEY.md §2: zero
-NCCL/MPI/rayon in the library), so this is green-field TPU design. The
+NCCL/MPI/rayon in the library), so this is green-field design. The
 natural scaling axis for ECFFT workloads (STARK trace low-degree
 extension) is the *batch* of polynomials:
 
@@ -9,18 +9,20 @@ extension) is the *batch* of polynomials:
   precomputation, O(n) bytes);
 - the polynomial batch dim is sharded across the mesh;
 - because every algorithm here is batch-parallel (no cross-polynomial
-  terms anywhere in fftree.rs:72-316), the SPMD partitioner inserts
-  **zero collectives** — scaling is embarrassingly parallel over ICI and
-  each chip runs the identical butterfly program on its shard.
+  terms anywhere in fftree.rs:72-316), every schedule segment runs under
+  ``shard_map`` over the batch axis with **zero collectives** — each
+  device runs the identical step program on its own lanes.
 
 Sharding the *n* (domain) axis is intentionally not done: EXTEND's
 butterfly pairs positions (i, i+k/2) at every level, which would force an
-all-to-all per level. For tree sizes that fit HBM (n ≤ 2^24 even for
-secp256k1), batch sharding is strictly better. A ring-exchange n-sharded
-variant is future work for n beyond HBM.
+all-to-all per level. For tree sizes whose state fits one device's
+memory, batch sharding is strictly better. A ring-exchange n-sharded
+variant is future work for n beyond one device.
 """
 
 from __future__ import annotations
+
+import copy
 
 import jax
 import numpy as np
@@ -67,12 +69,18 @@ class ShardedFFTree:
     Methods mirror :class:`ecfft_tpu.fftree.FFTree`; inputs may be numpy
     or device arrays — they are sharded on entry, and outputs come back
     with the same batch sharding (no gather; compose further sharded ops
-    freely).
+    freely). The calls may run eagerly or under ``jax.jit``: either way
+    every schedule segment runs under shard_map over the mesh.
+
+    ``self.tree`` is a shallow copy of ``tree`` bound to the mesh; the
+    tree passed in keeps its own placement.
     """
 
     def __init__(self, tree, mesh: Mesh | None = None):
         self.mesh = mesh if mesh is not None else make_mesh()
-        self.tree = replicate_tree(tree, self.mesh)
+        self.tree = copy.copy(tree)
+        self.tree.mesh = self.mesh
+        replicate_tree(self.tree, self.mesh)
 
     def prepare(self, sizes: tuple | None = None,
                 cache_dir: str | None = None):

@@ -358,8 +358,7 @@ def serialize_fftree(tree, compress: bool = True) -> bytes:
     enc_layers = [
         _ints_to_limbs(spec, layer) for layer in tree.f_layers
     ]
-    # one bulk device→host fetch: per-array np.asarray would pay a
-    # transfer round-trip per table on a remote backend
+    # one bulk device→host fetch instead of a transfer per table
     host_tables = jax.device_get(
         {
             k: {kk: v for kk, v in t.items() if kk != "ext"}
@@ -474,8 +473,8 @@ def deserialize_fftree(field: str | FieldSpec, data: bytes, compress: bool = Tru
         t["leaves"] = sec.f_layers[0]
         mats = []
         for li in range(max(m.bit_length() - 2, 0)):
-            # numpy slicing: eager jnp strided indexing costs a gather
-            # computation per slice (ruinous on a remote backend)
+            # numpy slicing: eager jnp strided indexing would compile and
+            # dispatch a gather per slice
             dec = np.asarray(sec.dec_layers[li])
             rec = np.asarray(sec.rec_layers[li])
             mats.append((dec[1::2], dec[0::2], rec[0::2], rec[1::2]))

@@ -1,7 +1,7 @@
 """End-to-end demo mirroring the reference's examples/interp_eval.rs:
 build a secp256k1 FFTree, ENTER a random polynomial, check against naive
 O(n^2) evaluation, then EXIT back to coefficients — with wall-clock
-prints. Runs on whatever device JAX picks (TPU when available).
+prints. Runs on whatever device JAX picks (the GPU when there is one).
 
     python examples/interp_eval.py [log2_n] [batch]
 """
@@ -17,15 +17,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (must match tests/conftest.py — same cache dir, same format)
 sys.modules["zstandard"] = None
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-
-import numpy as np  # noqa: E402
+import jax  # noqa: E402
 
 import ecfft_tpu as ec  # noqa: E402
 from ecfft_tpu.native import build_fftree_native  # noqa: E402
+from ecfft_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 from ecfft_tpu.utils.poly import evaluate  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():
@@ -47,8 +46,7 @@ def main():
     enc = tree.encode(polys)
 
     now = time.time()
-    evals = tree.enter(enc)
-    np.asarray(evals[0, 0])  # fence
+    evals = tree.enter(enc).block_until_ready()
     print(f"evaluation time (fft), batch {batch}: {time.time()-now:.3f}s")
 
     now = time.time()
@@ -58,8 +56,7 @@ def main():
     assert list(tree.decode(evals[0])) == naive, "ECFFT != naive"
 
     now = time.time()
-    coeffs = tree.exit(evals)
-    np.asarray(coeffs[0, 0])
+    coeffs = tree.exit(evals).block_until_ready()
     print(f"interpolation time (ifft): {time.time()-now:.3f}s")
     assert [list(r) for r in tree.decode(coeffs)] == polys
     print("roundtrip exact ✓")

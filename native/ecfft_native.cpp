@@ -1,7 +1,7 @@
 // ecfft-tpu native runtime: single-core C++ ECFFT engine.
 //
 // Role in the framework (SURVEY.md §2: the reference is a Rust/arkworks
-// crate; our compute path is JAX/XLA on TPU, and this module is the
+// crate; our compute path is JAX/XLA on the GPU, and this module is the
 // native host runtime around it):
 //   1. independent correctness oracle for the device path at sizes the
 //      pure-python oracle can't reach,
@@ -9,10 +9,10 @@
 //      bench.py's vs_baseline compares against (arkworks-class 4x64
 //      Montgomery multiplication via __uint128_t),
 //   3. fast host-side FFTree construction for large n (the O(n log^3 n)
-//      bootstrap) feeding precomputed tables to the TPU,
+//      bootstrap) feeding precomputed tables to the device,
 //   4. ark-serialize-compatible byte emission for interop checks.
 //
-// Architecture mirrors the *TPU* design, not the reference's: per-size
+// Architecture mirrors the *device* design, not the reference's: per-size
 // flat tables (no boxed subtree chain) and iterative butterfly loops
 // (see ecfft_tpu/ops/core.py). Semantics match /root/reference/src/
 // fftree.rs:72-316 (cited per function).

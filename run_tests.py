@@ -33,7 +33,7 @@ SHARDS = [
         "test_find_curve_schoof.py", "test_serialize.py",
         "test_ark_fixture.py", "test_native.py",
     ]),
-    # small-field device paths: field kernels, pallas step, NTT, registry
+    # small-field device paths: field kernels, step kernel, NTT, registry
     ("device-small", [
         "test_device_field.py", "test_pallas_step.py", "test_ntt.py",
         "test_custom_fields.py",
@@ -42,9 +42,9 @@ SHARDS = [
     ("device-tree", [
         "test_device_fftree.py", "test_sched_chunk.py",
     ]),
-    # multi-limb secp schedules + unrolled executor + multichip mesh
+    # multi-limb secp schedules + multichip mesh
     ("device-secp", [
-        "test_scheduled_secp.py", "test_unrolled.py", "test_parallel.py",
+        "test_scheduled_secp.py", "test_parallel.py",
     ]),
 ]
 

@@ -85,14 +85,49 @@ def test_sharded_enter_hlo_has_no_collectives():
     tree.prepare((32,))
     mesh = make_mesh()
     stree = ShardedFFTree(tree, mesh)
-    sharded = shard_batch(
-        mesh, jax.numpy.zeros((16, 32, 1), jax.numpy.uint32))
-    with mesh:
-        txt = (jax.jit(stree.tree.enter).lower(sharded)
-               .compile().as_text())
+    zeros = jax.numpy.zeros((16, 32, 1), jax.numpy.uint32)
+    txt = jax.jit(stree.enter).lower(zeros).compile().as_text()
     bad = [op for op in ("all-reduce", "all-gather", "collective-permute",
                          "all-to-all", "reduce-scatter") if op in txt]
     assert not bad, f"sharded ENTER HLO contains collectives: {bad}"
+
+
+def test_sharded_eager_and_jit_take_one_path(monkeypatch):
+    """Eager and jitted sharded calls both run every segment under
+    shard_map over the mesh, and agree bit for bit."""
+    from ecfft_tpu.ops import schedule as sch
+
+    tree, host = get()
+    tree.prepare((32,))
+    stree = ShardedFFTree(tree, make_mesh())
+    meshes = []
+    real = sch._run_segment_sharded
+
+    def spy(*args):
+        meshes.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(sch, "_run_segment_sharded", spy)
+    p = FIELDS["m31"].p
+    rng = random.Random(7)
+    enc = stree.encode([[rng.randrange(p) for _ in range(32)]
+                        for _ in range(16)])
+    eager = stree.enter(enc)
+    n_eager = len(meshes)
+    jitted = jax.jit(stree.enter)(enc)
+    assert n_eager > 0 and len(meshes) > n_eager
+    assert all(m is stree.mesh for m in meshes)
+    assert np.array_equal(np.asarray(eager), np.asarray(jitted))
+    assert eager.sharding.spec[0] == BATCH_AXIS
+
+
+def test_sharded_tree_leaves_the_input_tree_alone():
+    """ShardedFFTree runs a mesh-bound copy: the tree passed in keeps no
+    mesh and still runs on one device."""
+    tree, host = get()
+    stree = ShardedFFTree(tree, make_mesh())
+    assert stree.tree is not tree and stree.tree.mesh is stree.mesh
+    assert tree.mesh is None
 
 
 def test_sharded_redc_mod_vanish_exact():
@@ -128,8 +163,8 @@ def test_sharded_redc_mod_vanish_exact():
 def test_sharded_secp_scheduled_with_chunking():
     """The production path under sharding: secp256k1 n=256 on the
     schedule machine over the 8-device mesh, with batch CHUNKING active
-    inside each compiled segment (lax.map over lane-tile chunks —
-    fftree.py bounds HBM this way on TPU). Sharded + chunked must equal
+    inside each compiled segment (lax.map over batch chunks — the
+    legacy route's chunking). Sharded + chunked must equal
     unsharded bit-for-bit (VERDICT r2 weak #4: this combination was
     previously never tested)."""
     from ecfft_tpu.native import build_fftree_native
@@ -145,14 +180,14 @@ def test_sharded_secp_scheduled_with_chunking():
     s = tree._scheds[("enter", n)]
     ref = np.asarray(
         sch.run_schedule(tree.spec, tree._pool, s, jax.numpy.asarray(enc),
-                         2 * n, n, False, None)
+                         2 * n, n, sch.StepRoute(), None)
     )
     mesh = make_mesh()
     stree = ShardedFFTree(tree, mesh).prepare((n,))
     sharded_in = shard_batch(mesh, enc)
     with mesh:
         got = sch.run_schedule(stree.tree.spec, stree.tree._pool, s,
-                               sharded_in, 2 * n, n, False, 2)
+                               sharded_in, 2 * n, n, sch.StepRoute(), 2)
         jax.block_until_ready(got)
     assert np.array_equal(np.asarray(got), ref)
     # and the public sharded API agrees
